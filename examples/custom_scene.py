@@ -6,7 +6,7 @@ SoA arrays, render with any engine.  This example builds a small original
 world exercising every object kind the framework supports — spheres,
 moving spheres, quads, boxes, instance rotation/translation, constant
 media, all five materials, and three texture kinds — then renders it on
-whatever backend JAX finds (TPU if available).
+whatever backend JAX finds (the GPU if there is one).
 
 Run:  python examples/custom_scene.py [--out /tmp/custom.ppm]
 """

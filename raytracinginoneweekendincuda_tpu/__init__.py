@@ -1,4 +1,4 @@
-"""TPU-native differentiable path tracer.
+"""Differentiable path tracer for NVIDIA GPUs.
 
 A from-scratch JAX/XLA/Pallas re-design of the capabilities of
 eazuooz/RayTracinginOneWeekendinCUDA ("Ray Tracing in One Weekend" book 1

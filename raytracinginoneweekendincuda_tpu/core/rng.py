@@ -1,4 +1,4 @@
-"""Counter-based RNG for the TPU path tracer.
+"""Counter-based RNG for the path tracer.
 
 The CUDA reference keeps one mutable cuRAND XORWOW state per pixel
 (`kernel.cu:101-119`, seed 1984, subsequence = pixelIndex) and threads it
@@ -25,7 +25,7 @@ Every function here is written against plain array ops (``*``, ``+``, ``^``,
 
 * ``numpy`` (the f64 oracle in ``tests/oracle.py``),
 * ``jax.numpy`` (the batched engine),
-* Pallas TPU kernels (uint32 ops lower directly).
+* the Pallas megakernel (uint32 ops lower directly).
 
 NumPy scalars warn on uint32 overflow; arrays wrap silently — callers must
 pass arrays (0-d is fine).

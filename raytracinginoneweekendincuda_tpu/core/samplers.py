@@ -3,7 +3,7 @@
 The CUDA reference draws points in the unit ball / unit disk by *rejection*
 (`Material.h:14-24`, `Camera.h:10-19`): loop until a cube/square sample lands
 inside.  Data-dependent loop trip counts are hostile to a vector machine —
-every lane would wait for the unluckiest lane — so the TPU build uses exact
+every lane would wait for the unluckiest lane — so this build uses exact
 *analytic* inversions instead.  These produce the identical distributions
 (uniform in ball / disk) from a fixed number of uniforms, which also keeps
 the counter-RNG draw budget static.

@@ -1,8 +1,8 @@
 """3-vector math on ``(..., 3)`` arrays.
 
 The CUDA reference's ``Vector3`` (Vec3.h:10-141) is a scalar struct of three
-doubles with free functions ``Dot/Cross/UnitVector/Reflect/Refract``.  On TPU
-the natural layout is batched arrays with a trailing axis of 3; every helper
+doubles with free functions ``Dot/Cross/UnitVector/Reflect/Refract``.  Under
+XLA the natural layout is batched arrays with a trailing axis of 3; every helper
 here is shape-polymorphic over leading batch dimensions.
 
 Written against generic array operators only, so the same functions serve

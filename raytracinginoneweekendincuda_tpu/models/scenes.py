@@ -104,7 +104,7 @@ def checkered_spheres() -> SceneDesc:
 
 def earth(image_path: str | None = None) -> SceneDesc:
     """Image-textured globe (kernel.cu:275-286)."""
-    img = load_texture_image(image_path or default_asset("earthmap.jpg"))
+    img = load_texture_image(image_path or default_asset("earthmap.npy"))
     desc = SceneDesc()
     desc.add(Sphere((0, 0, 0), 2.0, Lambertian(ImageTexture(img))))
     desc.camera = Camera(lookfrom=(0, 0, 12), vfov=20.0, background=SKY)
@@ -249,7 +249,7 @@ def final_scene(seed: int = 1984, image_path: str | None = None) -> SceneDesc:
     # planet-wide thin mist
     desc.add(ConstantMedium(Sphere((0, 0, 0), 5000.0, Dielectric(1.5)), 1.0e-4, (1.0, 1.0, 1.0)))
 
-    img = load_texture_image(image_path or default_asset("earthmap.jpg"))
+    img = load_texture_image(image_path or default_asset("earthmap.npy"))
     desc.add(Sphere((400, 200, 400), 100.0, Lambertian(ImageTexture(img))))
     desc.add(Sphere((220, 280, 300), 80.0, Lambertian(NoiseTexture(0.2, table_seed=0))))
 

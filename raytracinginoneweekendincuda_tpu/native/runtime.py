@@ -1,7 +1,7 @@
 """ctypes bindings for the native (C++) runtime helpers.
 
 The reference's native layer is CUDA device code plus host C++ (stb decode,
-PPM serialization, BVH build on device).  The TPU build keeps the *compute*
+PPM serialization, BVH build on device).  This build keeps the *compute*
 path in XLA/Pallas and implements the host runtime pieces in C++
 (`native/src/`): PPM serialization and the BVH builder.  Python fallbacks
 exist for every entry point, so the framework works without the shared

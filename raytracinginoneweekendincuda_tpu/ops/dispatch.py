@@ -3,7 +3,7 @@
 ``engine`` selects between the brute-force closest-hit engine (optimal for
 the reference's scene sizes, `ops/hit.py`) and the flattened-BVH engine
 (`ops/bvh_engine.py`, the reference's BvhNode acceleration re-designed for
-TPU).  Both produce identical images for identical RNG streams — the
+batched arrays).  Both produce identical images for identical RNG streams — the
 reference's own strongest test (MD5-identical output with/without BVH,
 `Docs/2권_3장_BVH_CUDA적용판.md:733`) is reproduced in tests/test_bvh.py.
 """

@@ -15,8 +15,8 @@ This module splits the work accordingly:
     records each bounce's winner as a GLOBAL prim id [max_bounces, B] i32
     (sphere rows, then quads, then media; -1 = miss).  Any engine that can
     name its winner can produce this tape — the XLA closest-hit here, or
-    the mega2 Pallas trace kernel.  The tape is integer-valued, so autodiff
-    never looks inside its producer.
+    the megakernel's trace mode (`ops/mega2.py`).  The tape is
+    integer-valued, so autodiff never looks inside its producer.
   * `replay` recomputes the radiance with the winners FIXED: per bounce one
     [B]-row gather of the winner primitive, an analytic re-intersection
     (O(1) per segment — no [B, S] tensors anywhere), and the exact shade /
@@ -34,24 +34,11 @@ intersection math per Sphere.h:29-58 / Quad.h:52-83 / ConstantMedium.h:52-94.
 
 from __future__ import annotations
 
-import jax
 import jax.numpy as jnp
 from jax import lax
 
 from ..core import rng
 from ..core import vecmath as vm
-
-# Bounce loops at or below this depth run fully unrolled on TPU (training
-# depths — typically 8): no scan stacking (dynamic_update_slice per bounce
-# cost ~7 ms/step at 230k rays) and cross-bounce fusion.  Deeper loops keep
-# lax.scan, as does the CPU backend — XLA:CPU's compile time on the
-# unrolled reverse-mode graph is minutes (measured 315 s in the f64 test
-# suite) for a path whose win is TPU-specific.
-UNROLL_MAX = 16
-
-
-def _unroll(max_bounces: int) -> bool:
-    return max_bounces <= UNROLL_MAX and jax.default_backend() == "tpu"
 from ..scene.compiler import SceneArrays
 from . import hit as hit_ops
 from .hit import BIG, QUAD_PARALLEL_EPS, HitRecord
@@ -63,11 +50,8 @@ def derive_replay(scene: SceneArrays, meta):
     AND its denormalized material/texture row in ONE row, keyed by the
     tape's GLOBAL prim id.
 
-    The replay previously read three packed tables per bounce (sphere row,
-    quad row, material row); each read materializes a [B, N] one-hot for
-    the MXU contraction (`hit.onehot_read`), and that HBM traffic — not
-    the math — dominated the gradient step.  One merged row = one one-hot
-    per bounce.  Columns (sphere rows | quad rows):
+    One merged row = one row gather per bounce (and one scatter-add in
+    the backward) instead of three.  Columns (sphere rows | quad rows):
 
         0:3   c0            | n_unit
         3:6   dc            | vxw
@@ -91,19 +75,17 @@ def derive_replay(scene: SceneArrays, meta):
     sph_g = jnp.concatenate(
         [der.sph_tab[:, 0:11], jnp.zeros((S, 1), f)], axis=1)
     sph_mid = der.sph_tab[:, 11:12]                       # mat id
-    sph_m = hit_ops.onehot_read(der.mat_tab, scene.sph_mat.astype(jnp.int32))
+    sph_m = der.mat_tab[scene.sph_mat.astype(jnp.int32)]
     rows = [jnp.concatenate([sph_g, sph_mid, sph_m], axis=1)]
     if Q > 0:
         quad_g = der.quad_tab[:, 0:12]   # n_unit, vxw, wxu, q
         quad_mid = der.quad_tab[:, 12:13]
-        quad_m = hit_ops.onehot_read(der.mat_tab,
-                                     scene.quad_mat.astype(jnp.int32))
+        quad_m = der.mat_tab[scene.quad_mat.astype(jnp.int32)]
         rows.append(jnp.concatenate([quad_g, quad_mid, quad_m], axis=1))
     rep = jnp.concatenate(rows, axis=0) if len(rows) > 1 else rows[0]
     med_rows = None
     if meta.n_media > 0:
-        med_rows = hit_ops.onehot_read(der.mat_tab,
-                                       scene.med_mat.astype(jnp.int32))
+        med_rows = der.mat_tab[scene.med_mat.astype(jnp.int32)]
     return rep, med_rows
 
 
@@ -112,7 +94,7 @@ def taped_record(scene: SceneArrays, meta, rep, med_rows, o, d, time, t_min,
     """HitRecord for a KNOWN winner ``w`` [B] i32 (global id, -1 = miss).
 
     Re-intersects only the winner primitive from its merged replay row
-    (ONE one-hot MXU read per bounce, backward = one MXU dot — see
+    (ONE row gather per bounce, backward = one scatter-add — see
     `derive_replay`).  The tape is authoritative: no validity re-gating —
     the winner's t is recomputed with the standard NaN-safe guards but its
     hit/miss status comes from ``w`` alone.  Math per Sphere.h:29-58 /
@@ -126,7 +108,7 @@ def taped_record(scene: SceneArrays, meta, rep, med_rows, o, d, time, t_min,
     hit = w >= 0
     kind = jnp.where(w < S, 0, jnp.where(w < NP, 1, 2))
     idx = jnp.clip(w, 0, NP - 1)
-    row = hit_ops.onehot_read(rep, idx)           # [B, 26] — the ONE read
+    row = rep[idx]                                # [B, 26] — the ONE read
 
     # ---- sphere re-intersection (Sphere.h:29-58, direct oc form)
     frac = (time - row[:, 6]) * row[:, 7]
@@ -217,7 +199,7 @@ def taped_record(scene: SceneArrays, meta, rep, med_rows, o, d, time, t_min,
         vv = jnp.where(is_med, 0.0, vv)
         mat = jnp.where(is_med, scene.med_mat[i_m].astype(mat.dtype), mat)
         mrow = jnp.where(is_med[:, None],
-                         hit_ops.onehot_read(med_rows, i_m), mrow)
+                         med_rows[i_m], mrow)
 
     front = vm.dot(d, n_out) < 0.0
     normal = jnp.where(front[:, None], n_out, -n_out)
@@ -268,12 +250,6 @@ def generate_tape(scene: SceneArrays, meta, o, d, time, pix_ctr, sample, *,
 
     init = (o, d, jnp.ones((B, 3), dtype), jnp.zeros((B, 3), dtype),
             jnp.ones((B,), bool))
-    if _unroll(max_bounces):
-        carry, ws = init, []
-        for bounce in range(max_bounces):
-            carry, w = body(carry, jnp.int32(bounce))
-            ws.append(w)
-        return jnp.stack(ws), carry[3]
     (_, _, _, acc, _), tape = lax.scan(
         body, init, jnp.arange(max_bounces))
     return tape, acc
@@ -300,11 +276,6 @@ def replay(scene: SceneArrays, meta, tape, o, d, time, pix_ctr, sample, *,
 
     init = (o, d, jnp.ones((B, 3), dtype), jnp.zeros((B, 3), dtype),
             jnp.ones((B,), bool))
-    if _unroll(max_bounces):
-        carry = init
-        for bounce in range(max_bounces):
-            carry, _ = body(carry, (jnp.int32(bounce), tape[bounce]))
-        return carry[3]
     (_, _, _, acc, _), _ = lax.scan(
         body, init, (jnp.arange(max_bounces), tape))
     return acc

@@ -1,10 +1,10 @@
 """Multi-host bootstrap.
 
 The reference is single-process/single-GPU (SURVEY.md §2: no NCCL/MPI, no
-peer copies).  The TPU framework scales SPMD: the same `shard_map` programs
-(`parallel/render.py`, `parallel/train.py`) run unchanged on a multi-host
-pod slice once `jax.distributed.initialize` has stitched the hosts into one
-runtime.  This module is the thin, idempotent entry point for that.
+peer copies).  This framework scales SPMD: the same `shard_map` programs
+(`parallel/render.py`, `parallel/train.py`) run unchanged across hosts once
+`jax.distributed.initialize` has stitched them into one runtime.  This
+module is the thin, idempotent entry point for that.
 
 Typical multi-host launch (same command on every host):
 
@@ -27,7 +27,7 @@ def initialize(coordinator_address: str | None = None,
     """Idempotent `jax.distributed.initialize` wrapper.
 
     No-ops (returns False) in single-process settings: no coordinator
-    configured and no TPU pod environment to auto-detect.
+    address given as an argument or in the environment.
     """
     global _INITIALIZED
     if _INITIALIZED:
@@ -38,7 +38,6 @@ def initialize(coordinator_address: str | None = None,
         coordinator_address
         or os.environ.get("JAX_COORDINATOR_ADDRESS")
         or os.environ.get("COORDINATOR_ADDRESS")
-        or os.environ.get("MEGASCALE_COORDINATOR_ADDRESS")
     )
     if not have_env:
         return False
@@ -55,7 +54,7 @@ def initialize(coordinator_address: str | None = None,
 
 
 def global_mesh(sample_shards: int | None = None):
-    """Mesh over every chip in the (possibly multi-host) runtime."""
+    """Mesh over every device in the (possibly multi-host) runtime."""
     from .render import make_mesh
 
     return make_mesh(jax.devices(), sample_shards=sample_shards)

@@ -10,8 +10,8 @@ runs SPMD on the ``(px, sp)`` mesh:
   * the per-sample radiance is psum-averaged over ``sp`` *inside* the loss
     (MSE needs the mean before squaring),
   * parameter gradients are psum-reduced over both mesh axes (the gradient
-    all-reduce rides ICI; this is the collective the reference never needed
-    because it had no learnable state).
+    all-reduce; this is the collective the reference never needed because
+    it had no learnable state).
 
 Visibility discontinuities are ignored as in standard differentiable
 path-tracing practice (SURVEY.md §7.4); gradients are validated against
@@ -92,9 +92,8 @@ def make_train_step(
         and memory per segment in the primitive count.  After collapsing
         the replay's per-column winner gathers into the packed-table
         gathers `assemble_record` already issues (one gather — and one
-        scatter-add transpose — per bounce), this ties or beats the scan
-        path at every measured size on BOTH backends (docs/PERF.md), and
-        is the only path whose cost does not grow with the scene.
+        scatter-add transpose — per bounce), it is the only path whose
+        cost does not grow with the scene.
       * ``"scan"`` — `ops/integrator.trace(differentiable=True)`:
         scan + checkpoint through the full closest-hit search.  O(S) per
         bounce; kept as the gradient oracle for parity tests.
@@ -206,76 +205,54 @@ def make_train_step_mega2(
     optimizer: optax.GradientTransformation,
     mesh: Mesh | None = None,
 ):
-    """Fast train step: Pallas winner tapes + Pallas replay gradient.
+    """Fast train step: megakernel winner tapes + the XLA replay gradient.
 
-    With ``mesh=None`` — the single-chip two-phase step (the tape's
-    geometry/material tables are packed host-side from CONCRETE params,
-    so tape generation cannot live inside the gradient jit):
+    With ``mesh=None`` — the one-device two-phase step (the tape's
+    geometry/material tables are packed host-side from CONCRETE params, so
+    tape generation cannot live inside the gradient jit):
 
-      1. eager — `ops.mega2.mega2_tapes` runs the megakernel trace forward
-         for ALL spp samples in ONE device dispatch and returns the winner
-         tapes [spp, max_bounces, B];
-      2. jitted — MSE loss through the replay: on TPU with a supported
-         scene, `ops.pallas_replay.replay_pallas` (fused Pallas forward
-         AND backward kernels behind a custom VJP); otherwise the XLA
-         replay (one one-hot MXU table read per bounce; its backward is
-         a matmul).  Optimizer update follows.
+      1. the megakernel's trace mode runs ALL spp samples in ONE device
+         dispatch and returns the winner tapes [spp, max_bounces, B]
+         (global scene ids), from the rays of the current camera;
+      2. jitted — MSE loss through `ops.replay.replay` (one gather of the
+         winner's merged row per bounce; XLA emits its backward as a
+         scatter-add), then the optimizer update.
 
-    With a ``(px, sp)`` ``mesh`` — the SPMD composition of the same
-    kernels (`_make_train_step_mega2_sharded`): per shard, the Pallas
-    trace tape AND the Pallas custom-VJP replay run inside one
-    shard_map'd jit, the per-sample radiance psum-merges over ``sp``
-    inside the loss, and the parameter gradients psum over BOTH axes —
-    the north-star "backward at kernel speed per chip, gradient
-    all-reduce over ICI" (BASELINE.json).  Tables are still packed
-    eagerly per step from the concrete params.
+    With a ``(px, sp)`` ``mesh`` — the SPMD composition of the same pieces
+    (`_make_train_step_mega2_sharded`): per shard, the trace kernel AND the
+    replay run inside one shard_map'd jit, the per-sample radiance
+    psum-merges over ``sp`` inside the loss, and the parameter gradients
+    psum over BOTH axes.  Tables are still packed eagerly per step from
+    the concrete params.
 
     The tape is a valid pathwise sample wherever it came from, so the
-    gradient matches `trace_taped` a.e. (winner ties excepted —
-    docs/PERF.md).  Pixel batches may be scattered (lanes are gathered
-    in-graph); `make_train_step` remains the general XLA path.
+    gradient matches `trace_taped` a.e. (winner ties excepted).  Pixel
+    batches may be scattered (lanes are gathered in-graph);
+    `make_train_step` remains the general XLA path.
     """
-    from ..ops.mega2 import (
-        mega2_kernel_id_space, mega2_supported, mega2_tapes,
-    )
-    from ..ops.pallas_replay import replay_pallas, replay_pallas_supported
+    from ..ops.backend import pallas_interpret
+    from ..ops.mega2 import _tapes_jit
 
-    if not mega2_supported(meta):
-        raise ValueError("scene unsupported by the mega2 trace kernel; "
-                         "use make_train_step")
+    # device arrays: the replay indexes table leaves with traced ids
+    scene = jax.tree.map(jnp.asarray, scene)
     if mesh is not None:
         return _make_train_step_mega2_sharded(
             scene, meta, cfg, optimizer, mesh)
     spp = cfg.samples_per_pixel
     W, H = cfg.width, cfg.height
-    # Pallas forward+backward replay on TPU where the kernel supports the
-    # scene; the XLA replay otherwise (and on CPU, where interpret-mode
-    # kernels are slow).  The Pallas path consumes KERNEL-space tapes —
-    # the global-id remap is a [bounces, B] gather (~99 ms/step at 1.8M
-    # lanes) replaced by a trivial table permutation.
-    use_pallas = (replay_pallas_supported(meta)
-                  and jax.default_backend() == "tpu")
-    _, s_pad = mega2_kernel_id_space(scene, meta) if use_pallas else (None, 0)
 
     @jax.jit
-    def grad_step(state: TrainState, tapes, kperm, pix, target):
+    def grad_step(state: TrainState, tapes, pix, target):
         def loss_fn(p):
             sc = merge_params(scene, p)
             img = jnp.zeros((pix.shape[0], 3), sc.camera.origin.dtype)
             for s in range(spp):
                 o, d, time, pix_ctr = generate_rays(
                     sc.camera, pix, jnp.uint32(s), W, H, cfg.seed)
-                if use_pallas:
-                    col = replay_pallas(
-                        sc, meta, tapes[s], o, d, time, pix_ctr,
-                        jnp.uint32(s), max_bounces=cfg.max_bounces,
-                        t_min=cfg.t_min, kernel_space=(kperm, s_pad))
-                else:
-                    col = replay(
-                        sc, meta, tapes[s], o, d, time, pix_ctr,
-                        jnp.uint32(s), max_bounces=cfg.max_bounces,
-                        t_min=cfg.t_min)
-                img = img + col
+                img = img + replay(
+                    sc, meta, tapes[s], o, d, time, pix_ctr,
+                    jnp.uint32(s), max_bounces=cfg.max_bounces,
+                    t_min=cfg.t_min)
             diff = img / spp - target
             return (diff * diff).sum() / (3.0 * pix.shape[0])
 
@@ -287,16 +264,33 @@ def make_train_step_mega2(
 
     def step(state: TrainState, pix, target):
         sc = merge_params(scene, state.params)
-        tapes = mega2_tapes(sc, meta, np.asarray(pix), spp, width=W,
-                            height=H, max_bounces=cfg.max_bounces,
-                            t_min=cfg.t_min, seed=cfg.seed,
-                            id_space="kernel" if use_pallas else "global")
-        kperm = (jnp.asarray(mega2_kernel_id_space(sc, meta)[0])
-                 if use_pallas else jnp.zeros((1,), jnp.int32))
-        return grad_step(state, tapes, kperm,
-                         jnp.asarray(pix, jnp.int32), target)
+        tabs, spec, remap = _tape_kernel_inputs(sc, meta, cfg)
+        tapes = _tapes_jit(tabs, remap, jnp.asarray(pix, jnp.int32),
+                           sc.camera, spec=spec, width=W, height=H,
+                           n_samples=spp, interpret=pallas_interpret())
+        return grad_step(state, tapes, jnp.asarray(pix, jnp.int32), target)
 
     return step
+
+
+def _tape_kernel_inputs(sc: SceneArrays, meta: SceneMeta,
+                        cfg: RenderConfig):
+    """(tables, kernel spec, remap) for the trace kernel of the fast step.
+
+    The camera stays out of the spec (tapes start from in-graph rays of
+    the possibly traced camera, the replay's very rays), and so does the
+    medium albedo (cols 19:22): it is trainable but cannot affect winners.
+    So training moves no compile-time constant; the kernel recompiles only
+    when the table layout changes."""
+    from ..ops.mega2 import kernel_spec, mega2_tables
+
+    tabs, layout, med, remap = mega2_tables(sc, meta)
+    med_t = np.asarray(med, np.float64).copy()
+    med_t[:, 19:22] = 0.0
+    spec = kernel_spec(sc, meta, layout, med_t, seed=cfg.seed,
+                       max_bounces=cfg.max_bounces, t_min=cfg.t_min,
+                       camera=False)
+    return tabs, spec, remap
 
 
 def _make_train_step_mega2_sharded(
@@ -306,36 +300,30 @@ def _make_train_step_mega2_sharded(
     optimizer: optax.GradientTransformation,
     mesh: Mesh,
 ):
-    """SPMD composition of the Pallas fast gradient path over a (px, sp)
-    mesh — built by `make_train_step_mega2(mesh=...)`.
+    """SPMD composition of the fast gradient path over a (px, sp) mesh —
+    built by `make_train_step_mega2(mesh=...)`.
 
-    Per step: ONE eager host phase packs the mega2 tables from the
-    concrete params (`ops.mega2.mega2_tables` — numpy Morton sort), then
-    ONE jitted dispatch runs, per shard, (a) the Pallas trace kernel over
-    the shard's pixel slice and sample window (winner tapes, kernel-row
-    id space — integers, outside autodiff), and (b) the Pallas
-    custom-VJP replay forward+backward through the MSE loss.  The
-    per-sample radiance psums over ``sp`` inside the loss (MSE needs the
-    mean before squaring) and the parameter gradients psum over both
-    mesh axes — the gradient all-reduce rides ICI and XLA is free to
-    overlap it with the backward's tail.  RNG keys on global (pixel,
-    sample) ids, so the mesh layout is invisible in the estimator.
+    Per step: ONE eager host phase packs the megakernel tables from the
+    concrete params (`ops.mega2.mega2_tables`), then ONE jitted dispatch
+    runs, per shard, (a) the trace kernel over the shard's pixel slice and
+    sample window (winner tapes — integers, outside autodiff), and (b) the
+    XLA replay forward+backward through the MSE loss.  The per-sample
+    radiance psums over ``sp`` inside the loss (MSE needs the mean before
+    squaring) and the parameter gradients psum over both mesh axes.  RNG
+    keys on global (pixel, sample) ids, so the mesh layout is invisible in
+    the estimator.
 
     Primary rays for BOTH tape and replay come from the in-graph
     `generate_rays` on the traced camera (`_tapes_trace(camera=...)`),
-    which (1) keeps the trainable camera out of the trace kernel's
-    compile-time constants — no recompile when camera params move — and
-    (2) makes tape and replay share bit-identical rays on hardware.
-    The kernel-constant statics that CAN move with trained geometry
-    (`mu_key`, the coef-table recentering) are quantized in the pack and
-    only retrace on large excursions.
+    which keeps the trainable camera out of the trace kernel's
+    compile-time constants (no recompile when camera params move) and
+    makes tape and replay share the very same rays.  The tables are kernel
+    inputs, so moving geometry recompiles only when the table layout
+    changes.
     """
-    from ..ops.mega2 import _tapes_trace, mega2_tables
-    from ..ops.pallas_replay import replay_pallas, replay_pallas_supported
+    from ..ops.backend import pallas_interpret
+    from ..ops.mega2 import _tapes_trace
 
-    if not replay_pallas_supported(meta):
-        raise ValueError("scene unsupported by the Pallas replay; "
-                         "use make_train_step")
     n_px = mesh.shape[AXIS_PX]
     n_sp = mesh.shape[AXIS_SP]
     spp = cfg.samples_per_pixel
@@ -344,64 +332,54 @@ def _make_train_step_mega2_sharded(
     spp_local = spp // n_sp
     W, H = cfg.width, cfg.height
     K = cfg.max_bounces
-    interpret = jax.default_backend() != "tpu"
-    n_med = max(meta.n_media, 1)
-    # camera rides VMEM ray rows, so the kernel's camera constants are a
-    # fixed dummy; background only shades misses — irrelevant to winners
-    zcam = (0.0,) * 21
-    zbg = (0.0, 0.0, 0.0)
+    interpret = pallas_interpret()
     _cache: dict = {}
 
-    def build(mu_key, med_key, img_key, s_pad):
-        def body(params, *args):
-            tabs9 = args[:9]
-            kperm, pix, target = args[9:]
-            sp_i = lax.axis_index(AXIS_SP)
-            samp0 = sp_i * spp_local
+    def build(spec):
+        def body(params, tabs, remap, pix, target):
+            samp0 = lax.axis_index(AXIS_SP) * spp_local
             cam0 = merge_params(scene, params).camera
             # (a) winner tapes for this shard's (pixel, sample) window —
             # integer output, invisible to autodiff by construction
-            tapes = _tapes_trace(
-                tabs9, jnp.zeros((1,), jnp.int32), pix,
-                n_samples=spp_local, samp0=samp0, meta=meta,
-                med_key=med_key, cam_key=zcam, img_key=img_key,
-                mu_key=mu_key, width=W, height=H, seed=cfg.seed,
-                max_bounces=K, t_min=cfg.t_min, background=zbg,
-                interpret=interpret, remap_ids=False, camera=cam0)
+            tapes = _tapes_trace(spec, tabs, remap, pix, width=W, height=H,
+                                 n_samples=spp_local, samp0=samp0,
+                                 interpret=interpret, camera=cam0)
 
-            # (b) Pallas custom-VJP replay through the loss
-            def local_loss(p):
+            # (b) the XLA replay: this shard's radiance partial sum,
+            # collective-free so its vjp is the shard-local cotangent path
+            def local_acc(p):
                 sc = merge_params(scene, p)
                 img = jnp.zeros((pix.shape[0], 3), jnp.float32)
                 for s in range(spp_local):
-                    sg = samp0 + s
-                    o, d, time, pc = generate_rays(
-                        sc.camera, pix, jnp.asarray(sg).astype(jnp.uint32),
-                        W, H, cfg.seed)
-                    img = img + replay_pallas(
-                        sc, meta, tapes[s], o, d, time, pc, sg,
-                        max_bounces=K, t_min=cfg.t_min,
-                        kernel_space=(kperm, s_pad))
-                col = lax.psum(img, AXIS_SP) / np.float32(spp)
-                diff = col - target
-                return (diff * diff).sum()
+                    sg = (samp0 + s).astype(jnp.uint32)
+                    o, d, time, pc = generate_rays(sc.camera, pix, sg, W, H,
+                                                   cfg.seed)
+                    img = img + replay(sc, meta, tapes[s], o, d, time, pc,
+                                       sg, max_bounces=K, t_min=cfg.t_min)
+                return img
 
-            sse, grads = jax.value_and_grad(local_loss)(params)
+            acc, vjp_fn = jax.vjp(local_acc, params)
+            col = lax.psum(acc, AXIS_SP) / np.float32(spp)
+            diff = col - target
             denom = 3.0 * pix.shape[0] * n_px
-            loss = lax.psum(sse, AXIS_PX) / denom
+            loss = lax.psum((diff * diff).sum(), AXIS_PX) / denom
+            # the MSE chain rule outside autodiff, as in make_train_step:
+            # differentiating through the psum would n_sp-scale every
+            # gradient under check_vma=False
+            (grads,) = vjp_fn(diff * np.float32(2.0 / (spp * denom)))
             grads = jax.tree.map(
-                lambda g: lax.psum(g, (AXIS_PX, AXIS_SP)) / denom, grads)
+                lambda g: lax.psum(g, (AXIS_PX, AXIS_SP)), grads)
             return loss, grads
 
         sharded = jax.shard_map(
             body, mesh=mesh,
-            in_specs=(P(),) + (P(),) * 10 + (P(AXIS_PX), P(AXIS_PX)),
+            in_specs=(P(), P(), P(), P(AXIS_PX), P(AXIS_PX)),
             out_specs=(P(), P()),
             check_vma=False)
 
         @jax.jit
-        def grad_step(state: TrainState, tabs9, kperm, pix, target):
-            loss, grads = sharded(state.params, *tabs9, kperm, pix, target)
+        def grad_step(state: TrainState, tabs, remap, pix, target):
+            loss, grads = sharded(state.params, tabs, remap, pix, target)
             updates, opt_state = optimizer.update(grads, state.opt_state,
                                                   state.params)
             params = optax.apply_updates(state.params, updates)
@@ -412,25 +390,11 @@ def _make_train_step_mega2_sharded(
     def step(state: TrainState, pix, target):
         state = _commit_replicated(state, mesh)   # see make_train_step
         sc = merge_params(scene, state.params)
-        tabs_all = mega2_tables(sc, meta)
-        (sph_tab, quad_tab, attr_tab, coef_tab, cull_s, cull_q, perm_tab,
-         vec_tab, img_tab, img_key, mu_key, med, remap) = tabs_all
-        s_pad = int(sph_tab.shape[0])
-        n_geo = remap.shape[0] - n_med
-        kperm = remap[:n_geo + meta.n_media]
-        # medium albedo (cols 19:22) is trainable but cannot affect tape
-        # winners — zero it in the TRACE kernel's static key so albedo
-        # training never retraces (the replay carries it differentiably
-        # via the merged table)
-        med_t = np.asarray(med, np.float64).copy()
-        med_t[:, 19:22] = 0.0
-        med_key = tuple(tuple(float(x) for x in row) for row in med_t)
-        key = (mu_key, med_key, img_key, s_pad)
-        if key not in _cache:
-            _cache[key] = build(mu_key, med_key, img_key, s_pad)
-        tabs9 = tabs_all[:9]
-        return _cache[key](state, tabs9, kperm,
-                           jnp.asarray(pix, jnp.int32), target)
+        tabs, spec, remap = _tape_kernel_inputs(sc, meta, cfg)
+        if spec not in _cache:
+            _cache[spec] = build(spec)
+        return _cache[spec](state, tabs, remap,
+                            jnp.asarray(pix, jnp.int32), target)
 
     step.cache = _cache   # exposed so tests can pin the recompile count
     return step

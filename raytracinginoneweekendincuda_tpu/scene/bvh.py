@@ -5,7 +5,7 @@ The reference builds its BVH recursively on the device with a single thread
 bbox min along that axis `BvhNode.h:170-193`, median split) and traverses it
 iteratively with an explicit 32-entry stack (`BvhNode.h:101-158`).
 
-TPU-native redesign (SURVEY.md §2 "BVH" row):
+Data-parallel redesign (SURVEY.md §2 "BVH" row):
   * the build moves to the host (device-side construction was a CUDA-ism);
     same split rule, stable sort matching the reference's insertion sort;
   * the flattened layout is *threaded* (DFS preorder + escape links) so the

@@ -1,6 +1,6 @@
 """Scene compiler: declarative description -> type-tagged SoA arrays.
 
-This is the TPU-native replacement for the reference's device-side world
+This is the array-native replacement for the reference's device-side world
 construction (`CreateWorld<<<1,1>>>`, kernel.cu:176-543) and for its
 polymorphism: the `Hittable`/`Material`/`Texture` class hierarchies with
 virtual `Hit`/`Scatter`/`Value` (Hittable.h:33-65, Material.h:27-44,

@@ -21,7 +21,7 @@ import time
 
 
 def build_parser() -> argparse.ArgumentParser:
-    p = argparse.ArgumentParser(prog="rtow-tpu", description=__doc__)
+    p = argparse.ArgumentParser(prog="rtow-render", description=__doc__)
     p.add_argument("--scene", type=int, default=9, help="scene id 0-9 (kernel.cu:578-589)")
     p.add_argument("--width", type=int, default=1440)
     p.add_argument("--height", type=int, default=720)
@@ -33,13 +33,12 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--png", type=str, default=None, help="also write a PNG here")
     p.add_argument("--engine", default="mega2",
                    choices=("bruteforce", "bvh", "wavefront", "wavefront_bvh",
-                            "wavefront_pallas", "mega", "mega2"),
-                   help="mega2 = persistent pixel-per-lane megakernel, the "
-                        "fastest fused TPU path (auto-falls back for "
-                        "noise/image scenes); bruteforce = chunked "
-                        "deterministic baseline")
+                            "mega2"),
+                   help="mega2 = pixel-per-lane GPU megakernel (the fast "
+                        "path); bruteforce = chunked XLA reference engine")
     p.add_argument("--dtype", choices=("float32", "float64"), default="float32")
-    p.add_argument("--cpu", action="store_true", help="force the CPU backend")
+    p.add_argument("--cpu", action="store_true",
+                   help="force the CPU backend (kernels run interpreted)")
     p.add_argument("--sharded", action="store_true",
                    help="render via shard_map over all visible devices")
     p.add_argument("--rays-per-batch", type=int, default=None,
@@ -110,7 +109,7 @@ def main(argv=None) -> int:
         from ..ops.render import render
 
         # quantize on device (byte-identical PPM, 4x less transfer)
-        img = render(scene, meta, cfg, out_u8=True)
+        img = jax.block_until_ready(render(scene, meta, cfg, out_u8=True))
     dt = time.perf_counter() - t0
     if prof:
         jax.profiler.stop_trace()

@@ -20,11 +20,10 @@ class RenderConfig:
     max_bounces: int = 50            # kernel.cu:71
     seed: int = 1984                 # kernel.cu:105,118
     t_min: float = 1.0e-3            # shadow-acne epsilon, kernel.cu:74
-    # --- engine knobs (no reference equivalent; TPU scheduling surface) ---
+    # --- engine knobs (no reference equivalent) ---
     rays_per_batch: int = 1 << 17    # pixel chunk (chunked) / pool size (wavefront)
     engine: str = "bruteforce"       # bruteforce | bvh | wavefront |
-                                     # wavefront_bvh | wavefront_pallas |
-                                     # mega | mega2 (the TPU fast path)
+                                     # wavefront_bvh | mega2 (the GPU fast path)
     differentiable: bool = False     # scan-based bounce loop (reverse-mode safe)
     dtype: str = "float32"           # engine dtype ("float64" for oracle parity)
 

@@ -1,7 +1,7 @@
 """Real multi-host execution path: a 2-process `jax.distributed` cluster.
 
 The reference is single-process (SURVEY.md §2: no NCCL/MPI, `kernel.cu:570-742`);
-the TPU framework's north star requires multi-host SPMD.  Every other mesh
+this framework runs multi-host SPMD.  Every other mesh
 test runs single-process on 8 virtual devices; this one actually spawns two
 OS processes (4 virtual CPU devices each), stitches them with
 `parallel.distributed.initialize` (coordinator on localhost), builds the

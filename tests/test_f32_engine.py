@@ -1,9 +1,9 @@
-"""f32 engine (the TPU production dtype) vs the f64 oracle.
+"""f32 engine (the GPU production dtype) vs the f64 oracle.
 
 f32 arithmetic flips measure-zero discrete events (root validity, Schlick
 lottery), so individual samples can diverge completely; the bulk of pixels
 must still match the f64 oracle to f32 precision (SURVEY.md §7 hard part (d):
-keep the oracle in f64, run TPU in f32, set tolerances accordingly).
+keep the oracle in f64, run the device in f32, set tolerances accordingly).
 """
 
 import numpy as np

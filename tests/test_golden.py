@@ -5,16 +5,16 @@ The determinism contract (counter RNG keyed on global ids, fixed seed
 is the reference's own strongest verification method: the BVH change was
 validated by MD5-hashing output.ppm (Docs/2권_3장_BVH_CUDA적용판.md:733).
 These tests pin the quantized uint8 output of BOTH the XLA engine and the
-mega2 Pallas engine (interpret mode on this CPU suite) at a small config
+mega2 megakernel (Pallas interpreter on this CPU suite) at a small config
 per scene, so any future engine change that silently shifts an image
 fails loudly here; an INTENDED image change must update the table below
 (regenerate with the block at the bottom).
 
 Hashes are CPU-backend values (the suite's conftest pins JAX_PLATFORMS=
 cpu).  On most scenes the two engines are bit-identical; scene 0 differs
-on dense-MXU-path winner ties and scene 3 on Perlin FMA contraction —
-both documented estimator-class deviations (docs/PERF.md), which is
-exactly why each engine pins its own hash.
+on f32 winner ties of the key-space sphere test and scene 3 on Perlin
+rounding — estimator-class deviations, which is exactly why each engine
+pins its own hash.
 """
 
 import hashlib
@@ -29,12 +29,6 @@ from raytracinginoneweekendincuda_tpu.utils.config import RenderConfig
 
 # sid -> (xla_bruteforce_hash, mega2_hash); sha256 prefix of the u8 frame
 GOLDEN = {
-    # scene-0 mega2 hash updated round 5 (INTENDED image change): the
-    # dense sphere pair test moved from the MXU coefficient expansion to
-    # the exact direct VPU quadratic — the expansion's Mosaic bf16 input
-    # rounding silently distorted small-sphere radii on TPU (docs/PERF.md
-    # round 5).  Only the ~488 grid rows' ulp-level ts changed on CPU;
-    # every other scene is bit-identical through the rewrite.
     0: ("12b1d28e331add0d", "fa0b5fea756e71dd"),
     1: ("b672c0e0deed792d", "b672c0e0deed792d"),
     2: ("a01075de72c1ee23", "a01075de72c1ee23"),

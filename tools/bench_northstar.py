@@ -1,5 +1,5 @@
 """North-star benchmark (BASELINE.json): Book-1 final scene, 1200x675,
-500 spp, single chip.  Prints rays/s and a pair-test roofline estimate.
+500 spp, one GPU.  Prints the card, then rays/s.
 
 Usage: python tools/bench_northstar.py [spp] [repeats]
 """
@@ -20,9 +20,12 @@ W, H = 1200, 675
 SPP = int(sys.argv[1]) if len(sys.argv) > 1 else 500
 REP = int(sys.argv[2]) if len(sys.argv) > 2 else 2
 
-import jax
+from raytracinginoneweekendincuda_tpu.utils.benchmark import (
+    card_line, require_gpu,
+)
 
-print(f"backend: {jax.devices()}", file=sys.stderr)
+require_gpu()
+print(f"card: {card_line()}", file=sys.stderr)
 cfg = RenderConfig(width=W, height=H, samples_per_pixel=SPP)
 scene, meta = compile_scene(book1_final(), W, H, dtype=np.float32)
 
@@ -39,12 +42,3 @@ assert img.any()
 rays = W * H * SPP
 print(f"book1_final {W}x{H}@{SPP}spp: best {best:.2f} s = "
       f"{rays/best/1e6:.2f} M primary rays/s")
-# Roofline: every bounce segment pair-tests the padded sphere set on the
-# VPU/MXU.  ~3.2 segments/primary ray (measured scene-0 path length),
-# ~40 f32 ops per (ray, sphere) pair incl. reduce -> useful pair-FLOPs.
-s_pad = -(-scene.sph_c0.shape[0] // 64) * 64
-segs = rays * 3.2
-pair_flops = segs * s_pad * 40
-print(f"roofline: ~{pair_flops/best/1e12:.1f} Tpair-FLOP/s sustained vs "
-      f"~197 Tbf16/49 Tf32 peak (v5e) -> "
-      f"{pair_flops/best/49e12*100:.0f}% of f32 VPU-equivalent peak")

@@ -47,7 +47,7 @@ assert paths, f"no trace under {OUT}"
 with gzip.open(sorted(paths)[-1], "rt") as f:
     tr = json.load(f)
 events = tr["traceEvents"]
-# find TPU device pids (process names containing 'TPU' / device lanes)
+# device pids (GPU process names / device lanes)
 pid_name = {}
 tid_name = {}
 for e in events:
@@ -56,7 +56,7 @@ for e in events:
     if e.get("ph") == "M" and e.get("name") == "thread_name":
         tid_name[(e["pid"], e["tid"])] = e["args"].get("name", "")
 dev_pids = {p for p, n in pid_name.items()
-            if "TPU" in n or "tpu" in n or "Device" in n}
+            if "GPU" in n or "gpu" in n or "Device" in n}
 bucket = defaultdict(float)
 total = 0.0
 for e in events:
